@@ -1,8 +1,9 @@
-"""speck_tpu — a TPU-native SpGEMM (sparse general matrix-matrix multiply) framework.
+"""speck_tpu — a JAX SpGEMM (sparse general matrix-matrix multiply) library.
 
-Computes C = A @ B for CSR sparse matrices on TPU via JAX/XLA/Pallas, with the
+Computes C = A @ B for CSR sparse matrices on a GPU via JAX/XLA, with the
 capabilities of the reference CUDA library GPUPeople/spECK (PPoPP'20):
-a lightweight analysis pass routes rows between an MXU dense-window path, a
+a lightweight analysis pass routes rows between diagonal-plane paths, a
+dense-window matmul path, a
 direct-copy path, and a tightly packed flat product stream (sort-based
 expand/contract with merge levels for giant rows), producing exact symbolic
 counts and numeric accumulation into exactly-sized, per-row-sorted CSR output.
@@ -33,8 +34,8 @@ def spgemm_scipy(a, b, dtype=None, cfg=None):
 
     Runs the full device pipeline (analysis -> routing -> count ->
     numeric) and returns ``(a @ b)`` as a ``scipy.sparse.csr_matrix``
-    with sorted, deduplicated rows. ``dtype`` defaults to float32 (the
-    TPU-fast path); pass numpy.float64 with jax_enable_x64 for the
+    with sorted, deduplicated rows. ``dtype`` defaults to float32 (packed
+    8-byte B records); pass numpy.float64 with jax_enable_x64 for the
     double path."""
     import numpy as _np
 

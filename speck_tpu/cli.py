@@ -19,7 +19,7 @@ def main(argv=None):
     argv = list(sys.argv if argv is None else argv)
     from .executor import Executor
     from .utils.config import Config
-    from .utils.device import device_info
+    from .utils.device import device_info, enable_compile_cache
 
     args = [a for a in argv[1:] if not a.startswith("--")]
     # a lone config file still works when it supplies InputFile; flag-only
@@ -45,6 +45,7 @@ def main(argv=None):
         )
         return 1
     dtype = np.float64 if "--fp64" in argv else np.float32
+    enable_compile_cache()
     print(f"device: {device_info().summary()}")
     executor = Executor(path, config=config, dtype=dtype)
     result = executor.run()

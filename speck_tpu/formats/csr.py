@@ -7,7 +7,7 @@ Parity with the reference's host containers:
   - Welford row statistics: /root/reference/include/CSR.h:25-56
   - host spmv: /root/reference/source/CSR.cpp:139-171
 
-Design notes (TPU build): these are plain numpy structs used on the host for
+Design notes: these are plain numpy structs used on the host for
 IO, validation, and as the source for device uploads. Duplicate (row, col)
 entries are *kept*, matching the reference convert() which sorts but does not
 deduplicate; SpGEMM sums duplicate contributions, as does the scipy oracle.

@@ -2,14 +2,18 @@
 
 The reference's performance-critical host code is C++ (the .mtx parser,
 COO->CSR convert; SURVEY.md §2 #6-7). Here the hot loader path is a small
-C++ shared library built on demand with g++ and bound via ctypes (no pybind11
-in this image). Everything has a numpy fallback, so the native library is an
-accelerator, never a requirement.
+C++ shared library built from ``speck_native.cpp`` with g++ at first use
+and bound via ctypes (no pybind11 needed). The binary is never shipped:
+it is built into ``_build/`` (git-ignored) under a name carrying a hash
+of the source, so a checkout never loads a library built from other
+source, whatever the file times say. Everything has a numpy fallback, so
+the native library is an accelerator, never a requirement.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -17,24 +21,34 @@ import threading
 import numpy as np
 
 _HERE = os.path.dirname(__file__)
-_LIB_PATH = os.path.join(_HERE, "libspeck_native.so")
+_SRC = os.path.join(_HERE, "speck_native.cpp")
+BUILD_DIR = os.path.join(_HERE, "_build")
 _lock = threading.Lock()
 _lib = None
 _build_failed = False
 
 
-def _build() -> bool:
-    src = os.path.join(_HERE, "speck_native.cpp")
-    if not os.path.exists(src):
-        return False
-    cmd = [
-        "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        src, "-o", _LIB_PATH,
-    ]
+def lib_path() -> str:
+    """Where the library for the current source lives (built or not)."""
+    with open(_SRC, "rb") as fh:
+        tag = hashlib.sha256(fh.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"libspeck_native-{tag}.so")
+
+
+def _build(path: str) -> bool:
+    # portable code (no -march=native): the build directory may travel
+    # with a copied checkout to another host
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", _SRC, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+        # atomic publish: concurrent test workers may build at once
+        os.replace(tmp, path)
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
+        if os.path.exists(tmp):
+            os.remove(tmp)
         return False
 
 
@@ -44,18 +58,14 @@ def get_lib():
     with _lock:
         if _lib is not None:
             return _lib
-        if _build_failed:
+        if _build_failed or not os.path.exists(_SRC):
             return None
-        if not os.path.exists(_LIB_PATH) or (
-            os.path.exists(os.path.join(_HERE, "speck_native.cpp"))
-            and os.path.getmtime(_LIB_PATH)
-            < os.path.getmtime(os.path.join(_HERE, "speck_native.cpp"))
-        ):
-            if not _build():
-                _build_failed = True
-                return None
+        path = lib_path()
+        if not os.path.exists(path) and not _build(path):
+            _build_failed = True
+            return None
         try:
-            lib = ctypes.CDLL(_LIB_PATH)
+            lib = ctypes.CDLL(path)
         except OSError:
             _build_failed = True
             return None

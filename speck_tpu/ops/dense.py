@@ -1,11 +1,12 @@
-"""Dense-window SpGEMM tiles on the MXU.
+"""Dense-window SpGEMM tiles as batched matmuls.
 
-TPU-native rebirth of spECK's dense-mode kernels (iterateMatrixDenseNumeric /
+A re-expression of spECK's dense-mode kernels (iterateMatrixDenseNumeric /
 denseSpGEMMNumeric and their counting twins,
 /root/reference/include/GPU/spECK_HashSpGEMM.cuh:1175-1711): spECK
 accumulates a row into a shared-memory dense value window + presence bitmap
-over a column range and compacts with a block scan. On TPU the same idea
-maps onto the systolic array: a tile of TR consecutive rows with a bounded
+over a column range and compacts with a block scan. Here the same idea
+becomes dense matrix products (XLA hands them to cuBLAS): a tile of TR
+consecutive rows with a bounded
 k-range (A columns) and a bounded output column range becomes
 
     C_tile[TR, CW]   = A_dense[TR, KW] @ B_dense[KW, CW]      (values, fp)
@@ -25,8 +26,8 @@ common.cuh:303-319): a tile of TR consecutive rows is dense-eligible iff
   - its output-column range (union of referenced B row col ranges) spans <= CW,
   - max A row length <= LA and max referenced B row length <= LB.
 Everything else falls back to the ESC bins (ops/esc.py). For banded /
-FEM-class matrices every tile qualifies and the whole SpGEMM runs on the
-MXU at a fraction of the sort path's cost.
+FEM-class matrices every tile qualifies and the whole SpGEMM runs as
+matmuls instead of the sort path.
 
 Requires canonical A and B (sorted, deduplicated columns) — the same
 assumption the reference's direct path makes; the planner gates on it.
@@ -79,15 +80,12 @@ def tile_stats(a_indptr, a_indices, b_indptr, b_indices,
     # over A's nonzeros (the readOperations rowColMinMax analogue,
     # common.cuh:303-319,380-392)
     nnz = a_indices.shape[0]
-    # blocked cumsum: a plain 1-D cumsum over nnz lowers to a lane-serial
-    # scan (the pathology analysis.cumsum1d exists to avoid)
+    # blocked cumsum (analysis.cumsum1d) over nnz
     seg = cumsum1d(jnp.zeros((nnz,), jnp.int32).at[a_indptr[1:-1]].add(
         1, mode="drop")) if nnz else jnp.zeros((0,), jnp.int32)
-    # Three separate 1-D gathers at a_indices. Do NOT pack these into an
-    # (nnz, 3) record gather: a 2-D int32 output with minor dim 3 gets
-    # tile-padded to (nnz, 128) on TPU — 512 bytes/element, 25.6 GB at
-    # 50M nnz (the round-2 bench OOM, fusion output
-    # s32[50084873,3]{1,0:T(8,128)}).
+    # Three separate 1-D gathers at a_indices, not one (nnz, 3) record
+    # gather: a minor dimension of 3 can be tile-padded by the compiler
+    # (it ran a 50M-nnz input out of memory before the H100 port).
     gcmin = jax.ops.segment_min(b_cmin[a_indices], seg, num_segments=m)
     gcmax = jax.ops.segment_max(b_cmax[a_indices], seg, num_segments=m)
     gblen = jax.ops.segment_max(b_len[a_indices], seg, num_segments=m)
@@ -124,9 +122,8 @@ def _gather_rect(indptr, indices, data, rows, valid, width: int,
 
     With ``packed`` ((nnz, 2) interleaved col/value-bits records, see
     esc.pack_csr_arrays), each element costs ONE 8-byte record gather
-    instead of two 4-byte gathers — gathers are index-latency-bound and
-    dominate the dense path (measured 0.122 s for the A side alone on
-    the banded benchmark)."""
+    instead of two 4-byte gathers (chosen before the H100 port; not yet
+    measured on the H100)."""
     r = jnp.where(valid, rows, 0)
     p0 = indptr[r]
     ln = jnp.where(valid, indptr[r + 1] - p0, 0)
@@ -161,8 +158,8 @@ def _densify_scatter(loc, val, width: int):
 
 def _densify_sorted(loc, val, width: int):
     """Densification of per-row sorted sparse fragments via two batched
-    sorts — the fastest primitive this hardware offers for data movement
-    (per-element gathers/scatters run ~100M elem/s, row sorts ~3G elem/s).
+    sorts instead of scatters (chosen before the H100 port; not yet
+    measured on the H100).
 
     loc: (R, L) ascending per row, unique within a row (canonical CSR; pad
     entries hold a value >= width); val: (R, L). Returns
@@ -222,9 +219,8 @@ def dense_tiles(r0s, kbases, cbases, a_indptr, a_indices, a_data,
     """Fused count+numeric for a batch of dense-eligible tiles as ONE flat
     batched computation: all K tiles' rows are flattened to a (K*TR, ...)
     problem, the matmuls run as one batched dot, and the compaction is one
-    flat 2-D sort. No lax.scan / vmap anywhere — flat pipelines compile to
-    near-roofline TPU code while the same ops nested under scan/vmap lower
-    to pathologically slow loops (measured ~10,000x on v5e).
+    flat 2-D sort. No lax.scan / vmap anywhere: nested forms lowered to
+    slow loops before the H100 port (not yet measured on the H100).
 
     Memory per call is K * (TR*kw + kw*cw + ~4*TR*cw) * 4 bytes; the planner
     slices a big tile batch into multiple calls to bound this.
@@ -260,9 +256,12 @@ def dense_tiles(r0s, kbases, cbases, a_indptr, a_indices, a_data,
     cloc = jnp.where(blive, bcol - cb_k[:, None], cw)
     B_dense, B_hit = _dens(cloc, bval, cw)
 
-    # ---- MXU: values (full precision) + structural counts; counts are
-    # exact in fp (products are 1.0, accumulation fp32) — the pattern matmul
-    # is spECK's presence bitmap analogue (spECK_HashSpGEMM.cuh:1210-1233)
+    # ---- matmuls: values + structural counts. The value einsum keeps
+    # precision=HIGHEST so a GPU computes it in f32, not TF32 (TF32 keeps
+    # ~3 decimal digits, outside the oracle compare's 1e-3). Counts are
+    # exact in fp (products are 1.0, accumulation f32 while counts stay
+    # <= dense_la) — the pattern matmul is spECK's presence bitmap
+    # analogue (spECK_HashSpGEMM.cuh:1210-1233)
     A3 = A_dense.reshape(K, tile_rows, kw)
     B3 = B_dense.reshape(K, kw, cw)
     C_vals = jnp.einsum(
@@ -282,9 +281,9 @@ def dense_tiles(r0s, kbases, cbases, a_indptr, a_indices, a_data,
         counts, mode="drop", unique_indices=True
     )
 
-    # ---- presence-masked compaction via rank sort (sorts are fast on TPU,
-    # scatters are not); ascending ranks preserve column order so rows come
-    # out sorted, like the reference's dense mode (:1260-1296)
+    # ---- presence-masked compaction via rank sort; ascending ranks
+    # preserve column order so rows come out sorted, like the reference's
+    # dense mode (:1260-1296)
     rank = jnp.cumsum(present.astype(jnp.int32), axis=1) - 1
     key = jnp.where(present, rank, cw + t_cw)
     cols_g = jnp.where(present, cb_row[:, None] + t_cw, n_cols)
@@ -338,7 +337,7 @@ def dense_gather_emit(cols_c, vals_c, row_offsets, *,
                       tile_rows: int, cw: int, m: int, nnz: int = 0):
     """Emit for the pure-dense case (every tile eligible — full_cover — and
     no ESC rows): builds the final CSR arrays with gathers instead of a
-    masked scatter — gathers run ~2x faster than scatters on this hardware.
+    masked scatter.
 
     Requires the staged tiles to cover rows 0..m in order (tile i = rows
     [i*tile_rows, ...)), so output row r's staged slots live at flat index

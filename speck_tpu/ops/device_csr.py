@@ -2,7 +2,7 @@
 
 Parity with dCSR (/root/reference/include/dCSR.h:9-22,
 source/dCSR.cpp:25-95): raw device buffers (row_offsets, col_ids, data) plus
-host<->device converters. The TPU-native representation uses int32 indices
+host<->device converters. The device representation uses int32 indices
 and jnp arrays; ``shape``/``nnz`` are static pytree metadata so DeviceCSR can
 flow through jit.
 

@@ -1,6 +1,6 @@
 """DIA (diagonal-plane) fast path for globally band-limited SpGEMM.
 
-TPU-native reinterpretation of spECK's dense-accumulator mode
+A reinterpretation of spECK's dense-accumulator mode
 (/root/reference/include/GPU/spECK_HashSpGEMM.cuh:1175-1298 and the
 dense-method selection in spGEMMNumericLauncher :1761-1793): where the
 reference routes individual rows whose output-column RANGE is bounded to a
@@ -13,12 +13,12 @@ d-th diagonal stored as a length-m vector indexed by ROW).  Then
     C[i, i+e] = sum_{d1+d2=e} a_{d1}[i] * b_{d2}[i+d1]
 
 i.e. every output diagonal is a short sum of elementwise vector products
-of A-diagonals with row-shifted B-diagonals.  On TPU this is the ideal
-regime: the whole multiply becomes span_A flat fused multiply-adds over
-(span_B, m) planes — NO random gathers, NO sorts, pure VPU/HBM streaming
-— while every general-SpGEMM path pays ~2 random reads per product.
+of A-diagonals with row-shifted B-diagonals.  The whole multiply becomes
+span_A flat fused multiply-adds over (span_B, m) planes — NO random
+gathers, NO sorts, pure streaming through device memory — while every
+general-SpGEMM path pays ~2 random reads per product.
 Structure (symbolic counting) falls out of the same convolution applied to
-0/1 presence planes, exactly like the pattern matmul of the MXU dense path
+0/1 presence planes, exactly like the pattern matmul of the dense path
 (ops/dense.py) and the reference's presence bitmap (`prefix`,
 spECK_HashSpGEMM.cuh:1210-1233).
 
@@ -256,9 +256,9 @@ def _sdia_conv_block(a_val, a_hit, bp, bph, r0, *, off_a: tuple,
     """One row block [r0, r0+blk) of the list-offset convolution: the
     unrolled pair FMAs run over block-length vectors, so XLA's temp
     working set is O(pairs * blk) instead of O(pairs * m) — the
-    whole-matrix form compile-OOMs at stencil scale (63 G modeled HBM
-    for 729 pairs x 1.06M rows). bp/bph are the FULL padded B planes;
-    the block's window is one dynamic_slice."""
+    whole-matrix form runs out of compile-time memory at stencil scale
+    (63 GB modeled for 729 pairs x 1.06M rows). bp/bph are the FULL
+    padded B planes; the block's window is one dynamic_slice."""
     min_da = min(off_a)
     oc_index = {d: i for i, d in enumerate(off_c)}
     groups: dict = {}
@@ -377,10 +377,9 @@ def sdia_conv(a_val, a_hit, b_val, b_hit, *, off_a: tuple, off_b: tuple,
 def dia_count_pipeline(slot_a, a_data, slot_b, b_data, *, sa: int,
                        sb: int, m: int, k: int, dmin_a: int, sc: int,
                        n_cols: int, base_c: int, impl: str, same: bool):
-    """planes + convolution + count/stage as ONE dispatch (round-5
-    dispatch diet: per-launch transport overhead was ~1/3 of the banded
-    config's complete call). The reference's analogue is one fused
-    kernel launch per bin (spECK_HashSpGEMM.cuh:1800)."""
+    """planes + convolution + count/stage as ONE dispatch (fewer
+    launches and host round trips). The reference's analogue is one
+    fused kernel launch per bin (spECK_HashSpGEMM.cuh:1800)."""
     av, ah = dia_planes(slot_a, a_data, span=sa, rows=m)
     bv, bh = (av, ah) if same else dia_planes(slot_b, b_data, span=sb,
                                               rows=k)

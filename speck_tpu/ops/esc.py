@@ -17,7 +17,8 @@ interleaved key sort + doubling forward fill (no atomics, no hash maps —
 replacing spECK's shared-memory hash probes, include/HashMap.cuh); the
 sort+contract stages group duplicate columns and compute run sums exactly
 like ops/stream.py. Everything is a FLAT batched computation — no
-lax.scan, no vmap (measured ~10,000x slowdowns on v5e for nested forms).
+lax.scan, no vmap (the flat form was chosen before the H100 port; not
+yet measured on the H100).
 """
 
 from __future__ import annotations
@@ -27,8 +28,6 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-from .pallas_kernels import contract_divisible, contract_runs
-
 
 def _iota_like(x):
     return jax.lax.broadcasted_iota(jnp.int32, x.shape, dimension=1)
@@ -37,10 +36,10 @@ def _iota_like(x):
 @jax.jit
 def pack_csr_arrays(indices: jax.Array, data: jax.Array):
     """Interleave (col id, value) into one (nnz, 2) int32 record so each
-    random read costs ONE gather index instead of two (gathers on this
-    hardware are index-latency-bound: 8 bytes per index is ~2x cheaper than
-    4 bytes at two indices). 32-bit values only; callers pass None for
-    wider dtypes and the kernels fall back to two gathers."""
+    random read costs ONE gather index instead of two (chosen before the
+    H100 port; not yet measured on the H100).
+    32-bit values only; callers pass None for wider dtypes and the kernels
+    fall back to two gathers."""
     return jnp.stack(
         [indices.astype(jnp.int32),
          jax.lax.bitcast_convert_type(data, jnp.int32)], axis=-1
@@ -118,11 +117,10 @@ def _expand(rows, valid_rows, a_indptr, a_indices, a_data,
     source index simply u + t. Zero-length B rows are excluded from the fill
     (they own no products and must not shadow a live slot's payload).
 
-    Expansion is gather-bound (this hardware moves ~100-260M random elements
-    per second vs ~3G/s for row sorts), so the pass is shaped to minimize
-    random ops: per-A-slot record gathers plus the irreducible random read
-    of B's (column id, value) record per product — everything else is
-    sorts and elementwise passes.
+    The pass is shaped to minimize random ops (a choice made before the
+    H100 port; not yet measured on the H100): per-A-slot record
+    gathers plus the irreducible random read of B's (column id, value)
+    record per product — everything else is sorts and elementwise passes.
 
     Returns (col, val, ops): col[r, t] is the B column id of product t of
     row r (or the sentinel ``n_cols`` when t >= ops[r]); val is the product
@@ -155,9 +153,7 @@ def _expand(rows, valid_rows, a_indptr, a_indices, a_data,
     e = cum - blen                                      # slot start positions
 
     # owner payloads per product slot via sort + forward fill (no scatters,
-    # no take_along: per-element random ops run ~100-260M elem/s on this
-    # hardware, batched row sorts ~3G elem/s and the fill is log2(2*cap)
-    # elementwise passes)
+    # no take_along; the fill is log2(2*cap) elementwise passes)
     live = va & (blen > 0)
     u = bstart_a - e                                    # src base - start
     if with_values:
@@ -218,9 +214,9 @@ def _run_sums(val_s, first):
 
     Hand-rolled Hillis-Steele doubling (log2(W) shifted-add steps, plain
     elementwise HLO): jax.lax.associative_scan computes the same thing but
-    its recursive slice/concat tree takes minutes per shape to compile on
-    this backend, and a global-cumsum-difference trick loses ~eps * |row
-    prefix| to cancellation."""
+    its recursive slice/concat tree compiles slowly, and a
+    global-cumsum-difference trick loses ~eps * |row prefix| to
+    cancellation."""
     W = val_s.shape[1]
     v, f = val_s, first
     d = 1
@@ -233,19 +229,6 @@ def _run_sums(val_s, first):
         f = f | f_s
         d <<= 1
     return v
-
-
-def _contract(col_s, val_s, n_cols: int):
-    """Run-last mask + per-run sums of a column-sorted rectangle.
-
-    Uses the VMEM-resident Pallas kernel (ops/pallas_kernels.py) when the
-    shape fits its blocking; the XLA fallback computes the identical result
-    (same doubling order) with ~15 separate passes."""
-    R, W = col_s.shape
-    if contract_divisible(R, W):
-        return contract_runs(col_s, val_s, n_cols)
-    first, last = _run_boundaries(col_s, n_cols)
-    return last, _run_sums(val_s, first)
 
 
 def _compact_by_rank(last, col_s, run_sum):
@@ -321,8 +304,6 @@ def esc_fixed(a_indptr, a_indices, a_data, b_start, b_len, b_indices, b_data,
         b_start, b_len, b_indices, b_data, cap, n_cols, with_values=True,
     )
     col_s, val_s = jax.lax.sort((col, val), dimension=1, num_keys=1)
-    # XLA contract here: esc_fixed runs inside shard_map on device meshes,
-    # where pallas_call output avals need mesh-axis annotations
     first, last = _run_boundaries(col_s, n_cols)
     run_sum = _run_sums(val_s, first)
     counts = jnp.sum(last, axis=1, dtype=jnp.int32)

@@ -2,7 +2,7 @@
 
 Parity with the reference's standalone 3-kernel CSR transpose
 (/root/reference/source/GPU/Transpose.cu:10-118 — count, position, write):
-on TPU the same job is one sort by (column, row) plus a column histogram.
+here the same job is one sort by (column, row) plus a column histogram.
 The count kernel becomes a scatter-add histogram, the position scan a
 blocked cumsum, and the write pass falls out of the sort order directly.
 
@@ -44,8 +44,7 @@ def _transpose_impl(indptr, indices, data, m: int, n: int):
 def transpose(A: DeviceCSR) -> DeviceCSR:
     """Aᵀ as a device CSR. Canonical input yields canonical output.
 
-    Note: the global two-key sort runs over the flat nnz axis, which this
-    hardware executes far less efficiently than batched row sorts — fine
+    Note: the global two-key sort runs over the flat nnz axis — fine
     for setup-time use (the reference likewise transposes once at load,
     DataLoader.cpp:65-74), not for inner loops.
     """

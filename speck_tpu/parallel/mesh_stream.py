@@ -42,7 +42,7 @@ Kernel-family routing (the single-chip DIA/dense/stream auto-select,
 ops/spgemm, hoisted across devices): banded/stencil inputs take the
 per-shard diagonal-plane convolution with a fixed ring-halo exchange
 (_mesh_sdia_gate/_mesh_sdia_spgemm); tile-bounded inputs under
-``exchange="allgather"`` take the dense-MXU route — densify + batched
+``exchange="allgather"`` take the dense route — densify + batched
 matmuls per shard against the replicated B
 (_mesh_dense_gate/_mesh_dense_spgemm). Under needset the stream keeps
 precedence over dense: the need-set plan can move far less than the
@@ -78,7 +78,7 @@ def _mesh_wide_plans(shard_ops: List[np.ndarray], W: int, F: int,
                      max_width: int, n_cols: Optional[int] = None):
     """Host ladder plans for the in-SPMD wide-row merge levels.
 
-    Buffer-width cap (round-5, the giant-mesh OOM fix): every level's
+    Buffer-width cap (the giant-row mesh memory fix): every level's
     input/output buffers are truncated to pow2ceil(n_cols) columns —
     a compacted segment never holds more than n_cols distinct columns,
     so the truncation is lossless, and the VIRTUAL width ladder (which
@@ -186,7 +186,7 @@ def _host_row_ops(a: HostCSR, b_len: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Pre-sharded inputs (round-4 VERDICT item 6, second half): a process
+# Pre-sharded inputs: a process
 # only needs ITS OWN row shards' payloads. Everything cross-shard the
 # host planner consumes is per-shard metadata (row lengths, stream
 # totals, wide-row op lists, k-split candidates) exchanged as small
@@ -378,9 +378,9 @@ class NeedsetStats:
 
 
 # ---------------------------------------------------------------------------
-# Device-side need-set planning (round-4 VERDICT item 6)
+# Device-side need-set planning
 #
-# The host planner above this round did per-shard np.unique over all of
+# The older host planner did per-shard np.unique over all of
 # A's columns plus D^2 per-pair loops with per-row np.arange
 # concatenations -- O(nnz log nnz) host work that also required the FULL
 # A and B on every process. The device planner computes the
@@ -589,8 +589,8 @@ def _plan_ksplit_shards(ash: RowShards, ops_sh: np.ndarray,
     rows at all (needset: pure self-need). Partials merge via one
     all_gather + sort (see _make_shard_body).
 
-    Degrade paths (round-5, VERDICT item 9 — the reference degrades to
-    slower kernels, never refuses):
+    Degrade paths (the reference degrades to slower kernels, never
+    refuses):
     - more than _KSPLIT_MAX_ROWS candidates: only the heaviest 64 (plus
       every must-split row) take this path; the rest ride the ladder.
     - a sub-row past ``subrow_max`` products on one shard: SECONDARY
@@ -759,7 +759,7 @@ def _stream_pipeline(cfg, G: int, W: int, n_cols: int, ai, ax, ad,
     whose need is satisfied by that round's prefix of the received
     buffer.
 
-    Per-shard retained memory is BOUNDED (round-5, VERDICT item 1):
+    Per-shard retained memory is BOUNDED:
 
     - ladder levels with no final row anywhere retain nothing — their
       buffers are consumed by the next level and freed (specs[li]
@@ -854,8 +854,7 @@ def _stream_pipeline(cfg, G: int, W: int, n_cols: int, ai, ax, ad,
                 rows_sorted, rid_in, wcol, wval, wcnt,
                 in_map, final, nnz_row,
                 F=spec["F"], W_in=spec["W_buf_in"], n_cols=n_cols,
-                count=True, sort_impl=cfg.stream_sort_impl,
-                compact_impl=cfg.stream_compact_impl)
+                count=True, compact_impl=cfg.stream_compact_impl)
             if spec["W_buf_out"] < col_c.shape[1]:
                 col_c = col_c[:, : spec["W_buf_out"]]
                 val_c = val_c[:, : spec["W_buf_out"]]
@@ -907,7 +906,6 @@ def _emit_pipeline(cfg, G: int, W: int, n_cols: int, pipe, offs,
                 jnp.searchsorted(st["p0"], cs).astype(jnp.int32),
                 st["n_wide_dev"], G=G, W=W, n_cols=n_cols, pack_bits=0,
                 stage_wide=False, f64=f64,
-                sort_impl=cfg.stream_sort_impl,
                 compact_impl=cfg.stream_compact_impl)
     for rid_out, col_c, val_c, fcnt in level_out:
         rid_b = jnp.broadcast_to(rid_out[:, None], col_c.shape)
@@ -933,7 +931,7 @@ def _ksplit_merge(cfg, p_cols, p_vals, spl_tgt, spl_emit, nnz_row, *,
         mc = jnp.pad(mc, ((0, 0), (0, Wm - D_ax * PM)),
                      constant_values=n_cols)
         mv = jnp.pad(mv, ((0, 0), (0, Wm - D_ax * PM)))
-    col_s, val_s = _sort_cols(mc, mv, cfg.stream_sort_impl)
+    col_s, val_s = _sort_cols(mc, mv)
     rid_bm = jax.lax.broadcasted_iota(jnp.int32, (n_split, Wm), 0)
     last, run_sum = _contract_rect(rid_bm, col_s, val_s, n_cols)
     _, col_m, val_m, cnt_m = _compact_rect(
@@ -1021,7 +1019,7 @@ def _make_shard_body(cfg: SpgemmConfig, m_loc: int, W: int, G: int,
 
 # ---------------------------------------------------------------------------
 # Mesh (sparse-)DIA route: diagonal-plane convolution sharded over rows
-# with a fixed tiny halo exchange (round-5, VERDICT item 5)
+# with a fixed tiny halo exchange
 #
 # The single-chip (s)DIA fast path (ops/dia.py) is already row-blocked;
 # here the row blocks are mesh shards. Each shard builds its LOCAL A and
@@ -1297,7 +1295,7 @@ def _mesh_sdia_spgemm(ash: RowShards, bsh: RowShards, mesh: Mesh,
 
 def _mesh_dense_gate(ash: RowShards, bsh: RowShards, b_len_h: np.ndarray,
                      cfg: SpgemmConfig, D: int):
-    """Host eligibility for the mesh dense-MXU route, from per-shard
+    """Host eligibility for the mesh dense route, from per-shard
     local metadata only (multi-controller safe, like _mesh_sdia_gate).
 
     The single-chip dense-tile criteria (ops/dense.py: the analogue of
@@ -1409,7 +1407,7 @@ def _mesh_dense_gate(ash: RowShards, bsh: RowShards, b_len_h: np.ndarray,
     cw = up(stat[:, 2].max(initial=1), 128, 128)
     la = up(stat[:, 3].max(initial=1), 8, 8)
     lb = up(stat[:, 4].max(initial=1), 8, 8)
-    # per-shard working set (dense windows, MXU outputs, staged rows,
+    # per-shard working set (dense windows, matmul outputs, staged rows,
     # padded output) within the memory budget
     out_cap = _pow2ceil(max(1, m_loc * cw))
     bytes_ = 4 * (2 * K * tr * kw + 2 * K * kw * cw + 4 * K * tr * cw
@@ -1422,8 +1420,8 @@ def _mesh_dense_gate(ash: RowShards, bsh: RowShards, b_len_h: np.ndarray,
 
 def _mesh_dense_spgemm(ash: RowShards, bsh: RowShards, mesh: Mesh,
                        cfg: SpgemmConfig, dn: dict, dtype, b_nnz: int):
-    """Execute the mesh dense-MXU route: B replicated by all_gather,
-    every shard runs its row tiles as densify -> batched MXU matmul
+    """Execute the mesh dense route: B replicated by all_gather,
+    every shard runs its row tiles as densify -> batched matmul
     (values + exact bf16 pattern counts) -> rank-sort compaction —
     ops/dense.dense_tiles restructured for the SPMD body (local A,
     gathered B addressed shard-by-shard). Output format matches the
@@ -1499,9 +1497,10 @@ def _mesh_dense_spgemm(ash: RowShards, bsh: RowShards, mesh: Mesh,
         cloc = jnp.where(blive, bcol - cb_k[:, None], cw)
         B_dense, B_hit = _dens(cloc, bval, cw)
 
-        # ---- MXU: values at full precision; exact structural counts
-        # (bf16 pattern matmul, counts <= dense_la <= 256 — the presence
-        # bitmap analogue, spECK_HashSpGEMM.cuh:1210-1233)
+        # ---- matmuls: values at precision=HIGHEST (f32 on a GPU, not
+        # TF32); exact structural counts (bf16 pattern matmul, counts
+        # <= dense_la <= 256 — the presence bitmap analogue,
+        # spECK_HashSpGEMM.cuh:1210-1233)
         A3 = A_dense.reshape(K, tr, kw)
         B3 = B_dense.reshape(K, kw, cw)
         C_vals = jnp.einsum(
@@ -1597,7 +1596,7 @@ def mesh_stream_spgemm(
     if isinstance(a, RowShards):
         ash = a
     elif cfg.mesh_balance_rows:
-        # ops-balanced contiguous A partition (VERDICT r4 item 3): the
+        # ops-balanced contiguous A partition: the
         # heavy rows of a power-law matrix no longer pin the shared
         # n_chunks to one overloaded shard. Gate: only move boundaries
         # when equal-count ranges are actually imbalanced (>1.25x max/
@@ -1645,11 +1644,11 @@ def mesh_stream_spgemm(
     if sd is not None:
         return _mesh_sdia_spgemm(ash, bsh, mesh, cfg, sd, dtype, b_nnz)
 
-    # ---- mesh dense-MXU route: tile-bounded inputs run densify +
+    # ---- mesh dense route: tile-bounded inputs run densify +
     # batched matmuls per shard. B is replicated, so the gate is only
     # consulted when the caller already chose replication (allgather);
     # under needset the exchange plan's (possibly zero) communication
-    # keeps precedence over MXU throughput ----
+    # keeps precedence over matmul throughput ----
     if exchange == "allgather":
         dn = _mesh_dense_gate(ash, bsh, b_len_h, cfg, D)
         if dn is not None:
@@ -1695,7 +1694,7 @@ def mesh_stream_spgemm(
                 f"shard rows {r0}:{r1} pack to {total_qs[-1]} stream "
                 "slots, past the 2^31 int32 ceiling; use more shards")
     G = max(1, cfg.product_budget // W)
-    # exact-size G (round-5, mirrors plan_layout): when every shard's
+    # exact-size G (mirrors plan_layout): when every shard's
     # stream fits one chunk, the full budget rectangle left up to ~27x
     # dead slots at small scales — size the chunk to the largest
     # shard's live rect rows (multiple of 8). The k-split sub-pipeline
@@ -1944,7 +1943,7 @@ def mesh_stream_spgemm(
                 live_sends.append(put(send_idx[r].astype(np.int32)))
                 live_sends.append(put(send_valid[r]))
 
-        # ---- auto-fallback gate (round-5 hygiene): each round pads to
+        # ---- auto-fallback gate: each round pads to
         # its largest (dst, src) pair (exact by default,
         # MeshRoundPadExact), which can still make a scattered need
         # pattern move MORE bytes than full replication; fall back to
@@ -2262,14 +2261,13 @@ def last_exec():
     """Debug/benchmark hook: the (jitted step, device args) of the most
     recent mesh_stream_spgemm dispatch. Re-invoking times the pure SPMD
     step — no host replanning, no recompilation (the jit object is
-    reused) — which is what the overlap A/B measures
-    (scripts/ab_overlap.py)."""
+    reused)."""
     return _last_exec
 
 
 def _ksplit_meta(ksp) -> Optional[dict]:
     """Plan summary surfaced in meta so callers/tests can assert the
-    single-row sharding actually engaged (round-5, VERDICT item 1a)."""
+    single-row sharding actually engaged."""
     if ksp is None:
         return None
     return dict(n_split=int(ksp["n_split"]), n_rows=int(ksp["n_rows"]),

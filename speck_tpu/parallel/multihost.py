@@ -1,20 +1,20 @@
 """Multi-host (multi-controller) SpGEMM.
 
 The reference is single-GPU/single-process (SURVEY.md section 2.2);
-scaling across hosts is new design per BASELINE.json. On a real TPU pod
-each host process calls ``initialize()`` once, then every process calls
-``multihost_spgemm`` with the SAME host matrices: the global mesh spans
-all hosts' devices, each process device_puts only the shards its local
-devices own (addressable-shard assembly), and the SPMD stream step
+scaling across hosts is new design per BASELINE.json. On one host, one
+process drives all of its cards through ``mesh_stream_spgemm`` over the
+local mesh; this module is for several processes. Each process calls
+``initialize()`` once, then every process calls ``multihost_spgemm``
+with the SAME host matrices: the global mesh spans all processes'
+devices, each process device_puts only the shards its local devices own
+(addressable-shard assembly), and the SPMD stream step
 (parallel/mesh_stream.py) runs as one jitted ``shard_map`` whose
-collectives ride ICI within a slice and DCN across slices, scheduled by
-XLA.
+collectives XLA schedules (NCCL between GPUs).
 
-Single-process fallback: with one process this degenerates exactly to
-``mesh_stream_spgemm`` over the local mesh — which is how the path is
-exercised in CI (virtual 8-device CPU mesh) and by the driver's
-``dryrun_multichip``. True multi-process execution needs a pod; none is
-available in this environment (documented in BASELINE.md).
+With one process this degenerates exactly to ``mesh_stream_spgemm`` over
+the local mesh — which is how the path is exercised in CI (virtual
+8-device CPU mesh) and by ``dryrun_multichip``; tests/test_multihost_mp.py
+runs two CPU processes.
 """
 
 from __future__ import annotations
@@ -32,8 +32,9 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Initialize JAX's distributed runtime (idempotent).
 
-    With no arguments, relies on the TPU environment's auto-detection
-    (JAX_COORDINATOR_ADDRESS etc.); explicit values override.
+    Pass ``coordinator_address`` (e.g. ``localhost:<port>``),
+    ``num_processes`` and ``process_id``: with no arguments JAX relies on
+    a cluster environment's auto-detection, which a plain GPU host lacks.
     """
     try:
         jax.distributed.initialize(

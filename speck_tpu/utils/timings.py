@@ -2,7 +2,7 @@
 
 Parity with Timings (/root/reference/include/Timings.h:4-49): the reference
 tracks 12 float stage timers with += and /= operators, recorded via CUDA
-events around each pipeline stage (Multiply.cu:36-49). The TPU equivalent
+events around each pipeline stage (Multiply.cu:36-49). The equivalent here
 uses ``jax.block_until_ready`` + ``time.perf_counter`` wall timers; stage
 names mirror the reference's printout (Multiply.cu:1099-1113).
 """
@@ -16,13 +16,13 @@ STAGE_NAMES = (
     "init",            # buffer setup
     "countProducts",   # analysis pass (readOperations)
     "loadBalanceCounting",
-    "globalMapsCounting",  # kept for stage-name parity; ~0 on TPU (no global maps)
+    "globalMapsCounting",  # kept for stage-name parity; ~0 (no global maps)
     "spGEMMCounting",
     "allocC",
     "loadBalanceNumeric",
     "globalMapsNumeric",
     "spGEMMNumeric",
-    "sorting",         # ~0 on TPU: ESC/dense paths emit sorted rows
+    "sorting",         # ~0: ESC/dense paths emit sorted rows
     "cleanup",
     "complete",
 )

@@ -1,4 +1,4 @@
-"""MXU dense-window tile path (ops/dense.py): banded/low-colrange matrices
+"""Dense-window tile path (ops/dense.py): banded/low-colrange matrices
 must route through dense tiles and match the oracle exactly (structure) and
 within fp tolerance (values). The reference analogue is spECK's dense mode
 (spECK_HashSpGEMM.cuh:1175-1711)."""

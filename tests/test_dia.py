@@ -370,7 +370,7 @@ def test_dia_uniform_emit_numeric_rerun(rng):
 
 # ---------------------------------------------------------------------------
 # Per-row DIA split (cfg.dia_rows): banded bulk on planes, outliers on
-# the stream — the TPU-per-row form of the reference's per-block method
+# the stream — the per-row form of the reference's per-block method
 # auto-select (spECK_HashSpGEMM.cuh:1761-1793)
 # ---------------------------------------------------------------------------
 

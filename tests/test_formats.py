@@ -1,5 +1,6 @@
 """Formats layer: .mtx parsing, .hicsr cache, COO->CSR, transpose."""
 
+import os
 import struct
 
 import numpy as np
@@ -363,3 +364,34 @@ def test_native_mtx_writer_chunked(tmp_path, rng):
     oin = np.lexsort((cols, rows))
     np.testing.assert_array_equal(back.row_ids[order], rows[oin])
     np.testing.assert_array_equal(back.data[order], vals[oin])
+
+
+def test_native_lib_built_into_ignored_dir(tmp_path, rng):
+    """The native library is built from source into native/_build (which
+    .gitignore lists), named by a hash of the source, and its parser
+    agrees with the numpy fallback on a random general matrix."""
+    import subprocess
+
+    from speck_tpu import native
+    from speck_tpu.formats.csr import HostCOO
+    from speck_tpu.formats.mtx import store_mtx
+
+    assert native.get_lib() is not None, "g++ build of speck_native failed"
+    path = native.lib_path()
+    assert os.path.dirname(path) == native.BUILD_DIR and os.path.exists(path)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ignored = subprocess.run(
+        ["git", "check-ignore", "-q", path], cwd=repo).returncode
+    assert ignored == 0, f"{path} is not git-ignored"
+
+    m, n, nnz = 300, 200, 4000
+    coo = HostCOO(m, n, rng.integers(0, m, nnz).astype(np.uint32),
+                  rng.integers(0, n, nnz).astype(np.uint32),
+                  rng.standard_normal(nnz))
+    p = str(tmp_path / "r.mtx")
+    store_mtx(p, coo)
+    fast = load_mtx(p, use_native=True)
+    slow = load_mtx(p, use_native=False)
+    for f in ("row_ids", "col_ids"):
+        np.testing.assert_array_equal(getattr(fast, f), getattr(slow, f))
+    np.testing.assert_array_equal(fast.data, slow.data)

@@ -559,7 +559,7 @@ def _blockperm_host(m=512, blk=64, nnz_per_row=8, seed=23):
     p(d) = D-1-d (the reversal), so the diagonals spread across the
     whole matrix (the sdia halo gate rejects: halo would need non-ring
     shards) while every 64-row tile has A-span, output-span and row
-    lengths inside the dense windows — the mesh dense-MXU route's home
+    lengths inside the dense windows — the mesh dense route's home
     turf."""
     import scipy.sparse as sp
     from speck_tpu.formats.csr import HostCSR
@@ -581,8 +581,8 @@ def _blockperm_host(m=512, blk=64, nnz_per_row=8, seed=23):
 
 @pytest.mark.parametrize("tile_rows", [256, 32])
 def test_mesh_dense_route(rng, tile_rows):
-    """Mesh dense-MXU route (round-5): block-permuted tile-bounded
-    inputs under allgather run densify + batched MXU matmuls per shard
+    """Mesh dense route (round-5): block-permuted tile-bounded
+    inputs under allgather run densify + batched matmuls per shard
     (meta['route'] == 'dense', stats.mode == 'dense_allgather'),
     oracle-exact — at one tile per shard and at K=2 tiles. The same
     input under needset keeps the stream (the dense route replicates B,

@@ -24,8 +24,8 @@ from speck_tpu.formats.csr import HostCSR
 _TEST_CFG = SpgemmConfig(product_budget=1 << 14)
 
 # Value tolerance: run sums use a segmented Hillis-Steele scan (numerically
-# local, no cross-run cancellation) and the dense path accumulates on the
-# MXU at HIGHEST precision, so fp32 error is ~sqrt(run_len)*eps — well under
+# local, no cross-run cancellation) and the dense path's matmuls run at
+# HIGHEST precision, so fp32 error is ~sqrt(run_len)*eps — well under
 # 1e-3 relative. The reference's own value-compare bar is 1% and disabled by
 # default ("spECK is not bit stable", config.ini:7-9, readme.md:37); ours is
 # 5x tighter and always on.
@@ -204,7 +204,7 @@ def test_two_phase_fallback_matches_fused(rng):
     C_t = device_get_csr(spgemm(A, A, two_phase_cfg))
     np.testing.assert_array_equal(C_f.row_offsets, C_t.row_offsets)
     np.testing.assert_array_equal(C_f.col_ids, C_t.col_ids)
-    # fused cfg may route rows through the dense MXU path (different f32
+    # fused cfg may route rows through the dense path (different f32
     # accumulation order than the ESC run sums) -> small value drift
     np.testing.assert_allclose(C_f.data, C_t.data, rtol=1e-3, atol=1e-5)
     assert compare_csr(oracle_spgemm(a, a), C_t, compare_data=True,

@@ -353,21 +353,6 @@ def test_wide_finish_vs_ladder(rng):
     assert compare_csr(ref2, C2, compare_data=True, rel_tol=2e-3).ok
 
 
-def test_pallas_contract_matches_xla(rng):
-    """stream_pallas_contract routes the chunk contract through the VMEM
-    Pallas kernel (interpret mode on CPU); results must be identical."""
-    a = random_host_csr(rng, 150, 150, 0.07)
-    cfg_x = dataclasses.replace(_CFG, stream_width=512,
-                                product_budget=1 << 12)
-    cfg_p = dataclasses.replace(cfg_x, stream_pallas_contract=True)
-    A = device_put_csr(a)
-    C_x = device_get_csr(spgemm(A, A, cfg_x))
-    C_p = device_get_csr(spgemm(A, A, cfg_p))
-    np.testing.assert_array_equal(C_x.row_offsets, C_p.row_offsets)
-    np.testing.assert_array_equal(C_x.col_ids, C_p.col_ids)
-    np.testing.assert_allclose(C_x.data, C_p.data, rtol=0, atol=0)
-
-
 def test_unpacked_two_key_sort_path(rng):
     """pack_bits == 0 (key packing would overflow int32: wide W x big n,
     e.g. a 262k-col matrix whose giant row bumps W to 65536) falls back
@@ -394,74 +379,30 @@ def test_unpacked_two_key_sort_path(rng):
     assert compare_csr(ref, C, compare_data=True, rel_tol=2e-3).ok
 
 
-def test_bitonic_sort_matches_xla(rng):
-    """stream_sort_impl routes the chunk sorts through the bitonic
-    network (jnp or Pallas-VMEM); structure must be identical and
-    values fp-equal up to duplicate-summation order."""
-    a = random_host_csr(rng, 160, 160, 0.08)
-    cfg_x = dataclasses.replace(_CFG, stream_width=256,
-                                product_budget=1 << 12)
-    A = device_put_csr(a)
-    C_x = device_get_csr(spgemm(A, A, cfg_x))
-    ref = oracle_spgemm(a, a)
-    for impl in ("bitonic", "bitonic_pallas"):
-        cfg_b = dataclasses.replace(cfg_x, stream_sort_impl=impl)
-        C_b = device_get_csr(spgemm(A, A, cfg_b))
-        np.testing.assert_array_equal(C_x.row_offsets, C_b.row_offsets)
-        np.testing.assert_array_equal(C_x.col_ids, C_b.col_ids)
-        np.testing.assert_allclose(C_x.data, C_b.data, rtol=1e-5,
-                                   atol=1e-7)
-        assert compare_csr(ref, C_b, compare_data=True, rel_tol=2e-3).ok
-    # wide rows + two-phase numeric through the bitonic path
-    lil = a.to_scipy().tolil()
-    lil[0, :] = rng.standard_normal(160)
-    aw = HostCSR.from_scipy(lil.tocsr())
-    cfg_bw = dataclasses.replace(cfg_x, stream_sort_impl="bitonic",
-                                 stream_width=64,
-                                 product_budget=1 << 10,
-                                 fused_staging_budget=0)
-    refw = oracle_spgemm(aw, aw)
-    Cw = device_get_csr(spgemm(device_put_csr(aw), device_put_csr(aw),
-                               cfg_bw))
-    assert compare_csr(refw, Cw, compare_data=True, rel_tol=2e-3).ok
-
-
-def test_blocked_sort_matches_xla(rng):
-    """The blocked merge sort (width-8192 lax.sort runs + bitonic merge
-    rounds, ops/bitonic.py blocked_sort_pairs) is element-identical to
-    lax.sort on every stream sort site; "auto" resolves to it for wide
-    pow2 rows (the giant-row W=65536 chunks)."""
-    import jax.numpy as jnp
-    from speck_tpu.ops.bitonic import blocked_sort_pairs
-
-    # unit: merge-sort vs np.sort with multiple payloads
-    key = rng.integers(0, 1 << 28, size=(3, 4096)).astype(np.int32)
-    v1 = rng.standard_normal((3, 4096)).astype(np.float32)
-    v2 = rng.integers(0, 99, size=(3, 4096)).astype(np.int32)
-    k_s, (v1_s, v2_s) = blocked_sort_pairs(
-        jnp.asarray(key), [jnp.asarray(v1), jnp.asarray(v2)], block=512)
-    np.testing.assert_array_equal(np.asarray(k_s), np.sort(key, axis=1))
-    for r in range(3):
-        got = sorted(zip(np.asarray(k_s)[r].tolist(),
-                         np.asarray(v2_s)[r].tolist()))
-        want = sorted(zip(key[r].tolist(), v2[r].tolist()))
-        assert got == want
-
-    # end-to-end: wide rows through stream levels/finish with the
-    # blocked impl forced at every width
+def test_wide_rows_two_phase_levels_and_finish(rng):
+    """Wide rows through the merge levels and the single-sort finish with
+    two-phase staging (no fused staging), then a numeric replay with new
+    values: oracle-exact both times."""
     a = random_host_csr(rng, 160, 160, 0.08)
     lil = a.to_scipy().tolil()
     lil[0, :] = rng.standard_normal(160)
     aw = HostCSR.from_scipy(lil.tocsr())
-    cfg_x = dataclasses.replace(_CFG, stream_width=64,
-                                product_budget=1 << 10)
-    refw = oracle_spgemm(aw, aw)
+    cfg = dataclasses.replace(_CFG, stream_width=64, product_budget=1 << 10,
+                              fused_staging_budget=0)
     Aw = device_put_csr(aw)
-    for impl in ("blocked", "auto"):
-        cfg_b = dataclasses.replace(cfg_x, stream_sort_impl=impl,
-                                    fused_staging_budget=0)
-        Cw = device_get_csr(spgemm(Aw, Aw, cfg_b))
-        assert compare_csr(refw, Cw, compare_data=True, rel_tol=2e-3).ok
+    from speck_tpu.ops.spgemm import plan_spgemm
+
+    plan = plan_spgemm(Aw, Aw, cfg)
+    assert plan.stream.layout.n_wide >= 1 and not plan.stream.fused
+    Cw = device_get_csr(plan.execute())
+    assert compare_csr(oracle_spgemm(aw, aw), Cw, compare_data=True,
+                       rel_tol=2e-3).ok
+    a2 = HostCSR(rows=aw.rows, cols=aw.cols, row_offsets=aw.row_offsets,
+                 col_ids=aw.col_ids, data=aw.data * 0.5 - 1.0)
+    A2 = device_put_csr(a2)
+    C2 = device_get_csr(plan.execute(A2, A2))
+    assert compare_csr(oracle_spgemm(a2, a2), C2, compare_data=True,
+                       rel_tol=2e-3).ok
 
 
 def test_accum_path_giant_span(rng):
